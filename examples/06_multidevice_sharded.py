@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
 """Multi-device solves: GSPMD-sharded and explicit halo-exchange executors
-over a ('batch','y','x') mesh (TPU-native capability beyond the reference).
+over a ('batch','y','x') mesh (a capability beyond the reference).
 
-Runs on 8 virtual CPU devices; identical code scales over real TPU meshes
+Runs on 8 virtual CPU devices; identical code runs on a mesh of GPUs
 (and multiple hosts after jax.distributed.initialize())."""
 import os
 

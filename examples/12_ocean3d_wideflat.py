@@ -5,11 +5,9 @@ The reference ships `invert_3DOcean` (apps.py:830-888) but its SODA test
 is fully commented out (tests/test_3DOcean.py) and the fixture stripped.
 Here: a global ocean volume with realistic continents (subsampled from the
 soda_curl_like fixture's land mask), an exponential N-squared profile, and
-interior mass forcing.  CPU demo runs at 1.5 degrees; the TPU path runs
-the full 0.5-degree 30x330x720 volume through the z<->y PERMUTED windowed
-Pallas kernel (no z-window fits a wide-flat plane; the kernel transposes
-to (y, z, x) and windows physical latitude) at 1.58e10 point-sweeps/s,
-bit-exact vs the XLA sweep (tools/tpu_ocean3d_e2e.py).
+interior mass forcing.  The demo runs at 1.5 degrees; the full
+0.5-degree 30x330x720 volume runs the same code (its sweep rate on the
+GPU is in PERF.md).
 """
 import os
 import sys

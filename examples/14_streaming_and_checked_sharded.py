@@ -1,10 +1,8 @@
 # -*- coding: utf-8 -*-
-"""Round-3 executors: out-of-core host streaming, the convergence-checked
-sharded solve, and Chebyshev on the fused kernel path.
+"""Out-of-core host streaming, the convergence-checked sharded solve, and
+the Chebyshev scheme.
 
-Runs on 8 virtual CPU devices; identical code targets real TPU meshes (the
-windowed kernel runs in interpret mode here and compiles through Mosaic on
-TPU hardware)."""
+Runs on 8 virtual CPU devices; the same code runs on a mesh of GPUs."""
 import os
 
 flags = os.environ.get("XLA_FLAGS", "")
@@ -51,11 +49,9 @@ print("streamed == resident:", True,
 #   invert_Poisson(vor, dims=..., iParams={"streamChunk": 4})
 
 # --- convergence-checked sharded solve: the reference's stopping
-# semantics inside shard_map (psum norm, per-element telemetry) ---------
-from xinvert_tpu.parallel.halo_window import solve_halo_window
+# semantics on a GSPMD-sharded state (global norm, per-element telemetry)
+from xinvert_tpu.parallel import solve_sharded, make_grid_mesh
 
-# a larger grid so each of the 8 devices holds a >=64-row block (the
-# windowed kernel's minimum plan height)
 ny2, nx2 = 512, 128
 lat2 = np.linspace(-80, 80, ny2)
 lon2 = np.linspace(0, 360 - 360 / nx2, nx2)
@@ -65,17 +61,15 @@ vor2 = rng.normal(0, 1e-5, (ny2, nx2))
 spec1 = problems.build_poisson(jnp.asarray(vor2),
                                jnp.ones((ny2, nx2), bool), grid2,
                                default_mParams)
-mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(8), ("y",))
-shrd = solve_halo_window(spec1, jnp.zeros((ny2, nx2)), 1.8, 1e-11, 3000,
-                         check_every=8, mesh=mesh)
+shrd = solve_sharded(spec1, jnp.zeros((ny2, nx2)), mesh=make_grid_mesh(8),
+                     omega=1.8, tol=1e-11, max_iters=3000, check_every=8)
 host = solve(spec1, jnp.zeros((ny2, nx2)), 1.8, tol=1e-11, max_iters=3000,
              check_every=8)
 print("sharded checked solve: iters", int(shrd.iters),
       "(host", int(host.iters), ") max|diff|",
       float(jnp.max(jnp.abs(shrd.S - host.S))))
 
-# --- Chebyshev on the kernel path: scheme='cheby' no longer forces the
-# XLA rolls on >VMEM grids (the factors ride into the kernel via SMEM) --
+# --- Chebyshev: per-half-sweep factors from the Golub-Varga recurrence --
 cheb = solve(spec1, jnp.zeros((ny2, nx2)), 1.8, tol=1e-11, max_iters=3000,
              check_every=8, scheme="cheby")
 print("cheby: iters", int(cheb.iters), "rel", float(cheb.rel_change))

@@ -1,9 +1,10 @@
 # -*- coding: utf-8 -*-
-"""Certified f64-class residuals on f32-only TPU hardware
+"""Certified f64-class residuals from f32 arithmetic
 (iParams tolType='refined').
 
-The reference runs float64 numba kernels end-to-end; TPU has no f64, and
-a single f32 state stalls at a relative-residual floor of roughly
+The reference runs float64 numba kernels end-to-end; the fast path here
+is float32, and a single f32 state stalls at a relative-residual floor of
+roughly
 ``eps * mean|w0*S| / mean|g|`` — ~1e-1 for the 2048^2 full-sphere Poisson
 (polar metric inflation).  `tolType='refined'` routes the inversion
 through mixed-precision iterative refinement (refine.solve_refined):
@@ -14,11 +15,10 @@ through mixed-precision iterative refinement (refine.solve_refined):
    (ops/compensated.py — TwoSum / TwoProd are exact under the XLA
    compilers, so the certificate matches true f64 arithmetic to <0.1%,
    asserted in tests/test_refine.py);
-3. corrections solve on the fast f32 kernel path.
+3. corrections solve on the fast f32 path.
 
-On the v5e the 2048^2 full-sphere case certifies 6.3e-7 in ~19 s where
-the single-f32 state stalls at 1.1e-1 (tools/tpu_refine_check.py).  On
-CPU under x64 this example runs the same machinery in f64 (the operator
+On a GPU, chip_smoke.py certifies the 2048^2 full-sphere case to 1e-5.
+On CPU under x64 this example runs the same machinery in f64 (the operator
 builds in the grid metric's dtype), pushing the certificate toward the
 f64 floor instead.
 """

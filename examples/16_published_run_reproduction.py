@@ -18,7 +18,7 @@ off-by-one (numbas.py:278-414 — printed ``loops L`` means L+1 sweeps), so
 we pass ``mxLoop + 1`` and read ``loops L+1`` for the same final state.
 
 The full reproduction matrix (9 notebook workloads, published + directly
-driven reference oracles) lives in E2E.json / tests/test_notebook_parity.py.
+driven reference oracles) lives in tests/test_notebook_parity.py.
 """
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))

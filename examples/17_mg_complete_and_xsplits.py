@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Round-5 additions: the complete multigrid matrix (+Eψ family) and
-('y','x') x-splits for the biharmonic / 3-D sharded executors.
+"""The complete multigrid matrix (+Eψ family) and sharded biharmonic and
+3-D solves.
 
 - Every 2-D/3-D problem family now has a residual-certified `invert_*_mg`
   entry (15 of 16 apps; the 1-D pair is a one-shot direct tridiagonal
@@ -8,11 +8,10 @@
   reference discretisation at level 0 and re-express coarse levels in
   upwinded general form (the antisymmetric cross-flux beta term is
   advection in disguise).
-- The Stommel-Munk gyre class shards over ('y','x') meshes with
-  128-lane-aligned ghost columns (two-ring radius-2 cone), and 3-D
-  volumes get checked stopping + x-splits on-mesh.
+- The Stommel-Munk gyre class shards over ('y','x') meshes, and 3-D
+  volumes run checked solves on-mesh (GSPMD, through iParams['mesh']).
 
-Runs on 8 virtual CPU devices; identical code targets real TPU meshes."""
+Runs on 8 virtual CPU devices; identical code runs on a mesh of GPUs."""
 import os
 
 flags = os.environ.get("XLA_FLAGS", "")

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """Tiny, slow numpy oracles implementing the reference SOR semantics
 (lexicographic in-place Gauss-Seidel, /root/reference/xinvert/numbas.py) from
-the published update formulas.  Used only to validate that the TPU red-black
-engine converges to the same fixed point on small grids."""
+the published update formulas.  Used only to validate that the red-black
+engine converges to the same fixed point (and, for the red-black oracle,
+runs the same iterates) on small grids."""
 import numpy as np
 
 
@@ -102,3 +103,81 @@ def lexicographic_from_spec(spec, S, omega, n_iters, extend_fn=None):
                 acc += w[(k,) + idx] * S[nidx]
             S[idx] += omega * relax[idx] * (acc + w0[idx] * S[idx])
     return S
+
+
+def _extend_numpy(S, bcs, bih):
+    """The extend pre-pass on one slice, written out row by row: the first
+    and last rows (two each for the biharmonic ring) copy the nearest
+    interior row, columns clamped into the interior unless x is periodic;
+    3-D volumes extend their interior z levels only; 1-D extends the
+    line's two ends."""
+    S = S.copy()
+    if S.ndim == 1:
+        if bcs[-1] == "extend":
+            S[0], S[-1] = S[1], S[-2]
+        return S
+    if bcs[-2] != "extend":
+        return S
+    if S.ndim == 3:
+        for z in range(1, S.shape[0] - 1):
+            S[z] = _extend_numpy(S[z], bcs[1:], False)
+        return S
+    ny, nx = S.shape
+    periodic = bcs[-1] == "periodic"
+    ring = 2 if bih else 1
+    cols = np.arange(nx) if periodic else np.clip(np.arange(nx), ring,
+                                                  nx - 1 - ring)
+    if not bih:
+        S[0] = S[1, cols]
+        S[-1] = S[-2, cols]
+    elif periodic:
+        r1, r2, r3 = S[1].copy(), S[2].copy(), S[-3].copy()
+        S[0], S[1], S[-2], S[-1] = r1, r2, r3, r3
+    else:
+        top, bot = S[2, cols].copy(), S[-3, cols].copy()
+        S[0], S[1], S[-2], S[-1] = top, top, bot, bot
+    return S
+
+
+def redblack_from_spec(spec, S, omega, n_iters):
+    """Red-black SOR over a compiled StencilSpec, in numpy: per iteration
+    the extend pre-pass, then the cells with an even sum of core indices,
+    then the odd ones; each half-sweep updates the active cells of its
+    colour from the state before it, ``S += omega * relax * (sum_k w_k
+    S[. + off_k] + w0 S + g)``, neighbours indexed with wrap-around.
+    Leading batch dims of ``S`` (and of the spec planes, where batched)
+    run slice by slice."""
+    S = np.array(S, dtype=np.asarray(spec.w0).dtype)
+    nd = spec.ndim
+    core = S.shape[-nd:]
+    batch = S.shape[:-nd]
+    planes = {k: np.asarray(getattr(spec, k))
+              for k in ("w0", "g", "relax", "active")}
+    w = np.asarray(spec.w)
+    idx = np.indices(core)
+    colour = idx.sum(axis=0) % 2
+
+    def sl(a, b, lead=0):
+        if a.ndim - lead > nd:
+            return a[(slice(None),) * lead + b]
+        return a
+
+    out = np.empty_like(S)
+    for b in np.ndindex(*batch):
+        Sb = S[b].copy()
+        w0, g, relax, active = (sl(planes[k], b) for k in
+                                ("w0", "g", "relax", "active"))
+        wb = sl(w, b, lead=1)
+        nbr = [tuple((idx[a] + off[a]) % core[a] for a in range(nd))
+               for off in spec.offsets]
+        for _ in range(n_iters):
+            Sb = _extend_numpy(Sb, spec.bcs, spec.bih)
+            for c in (0, 1):
+                acc = g.copy()
+                for k, ni in enumerate(nbr):
+                    acc = acc + wb[k] * Sb[ni]
+                upd = active & (colour == c)
+                new = Sb + omega * relax * (acc + w0 * Sb)
+                Sb = np.where(upd, new, Sb)
+        out[b] = Sb
+    return out

@@ -41,7 +41,7 @@ def test_cheby_same_fixed_point():
     spec, S0 = _poisson()
     om = optimal_omega(S0.shape)
     ref = solve(spec, S0, omega=om, tol=1e-13, max_iters=20000,
-                use_pallas=False)
+                use_kernel=False)
     che = solve(spec, S0, omega=om, tol=1e-13, max_iters=20000,
                 scheme="cheby")
     scale = float(jnp.max(jnp.abs(ref.S)))
@@ -59,7 +59,7 @@ def test_cheby_parity_class_iterations():
     spec, S0 = _poisson(ny=128, nx=128, bcs=("fixed", "fixed"))
     om = optimal_omega(S0.shape)
     sor = solve(spec, S0, omega=om, tol=1e-10, max_iters=20000,
-                use_pallas=False)
+                use_kernel=False)
     che = solve(spec, S0, omega=om, tol=1e-10, max_iters=20000,
                 scheme="cheby")
     it_sor, it_che = int(sor.iters), int(che.iters)
@@ -94,7 +94,7 @@ def test_cheby_masked_and_extend():
                                (1.0e5, 1.0e5), ("extend", "periodic"))
     om = optimal_omega(S0.shape)
     ref = solve(spec, S0, omega=om, tol=1e-13, max_iters=30000,
-                use_pallas=False)
+                use_kernel=False)
     che = solve(spec, S0, omega=om, tol=1e-13, max_iters=30000,
                 scheme="cheby")
     scale = float(jnp.max(jnp.abs(ref.S)))

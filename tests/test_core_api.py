@@ -97,18 +97,28 @@ def test_inv_standard3D_default_bcs_error_message():
         inv_standard3D(1.0, 1.0, 1.0, F, dims=["lev", "lat", "lon"])
 
 
-def test_enable_compile_cache(tmp_path):
-    """The opt-in persistent-compile-cache helper configures jax and
-    returns the directory (round 5)."""
+def test_enable_compile_cache(tmp_path, monkeypatch):
+    """The persistent-compile-cache helper: JAX_COMPILATION_CACHE_DIR
+    when it is set (and no directory of its own), else a fixed directory
+    at the root of the checkout."""
+    import os
     import jax
     import xinvert_tpu as xv
     old = jax.config.jax_compilation_cache_dir
+    old_min = jax.config.jax_persistent_cache_min_compile_time_secs
     try:
-        p = xv.enable_compile_cache(path=str(tmp_path / "jc"),
-                                    min_compile_secs=5.0)
-        assert p == str(tmp_path / "jc")
-        import os
-        assert os.path.isdir(p)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+        jax.config.update("jax_compilation_cache_dir", old)
+        assert xv.enable_compile_cache(min_compile_secs=5.0) == \
+            str(tmp_path / "jc")
+        assert jax.config.jax_compilation_cache_dir == old
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 5.0
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        p = xv.enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(xv.__file__)))
+        assert p == os.path.join(root, ".jax_cache") and os.path.isdir(p)
         assert jax.config.jax_compilation_cache_dir == p
     finally:
         jax.config.update("jax_compilation_cache_dir", old)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          old_min)

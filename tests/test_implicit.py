@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Differentiable inversions (ops/implicit.py): implicit-function-theorem
-gradients through the SOR solve — a TPU-native capability with no
+gradients through the SOR solve — a capability with no
 reference analog (sensitivity analysis / data assimilation around any
 invert_* physics).  Validated against dense transposes and central
 finite differences."""
@@ -243,8 +243,8 @@ def test_batched_gradients():
 
 
 def test_fixed_count_linearity_identity():
-    """The oracle behind the on-chip gradient check
-    (tools/tpu_implicit_check.py): at a FIXED sweep count (tol=0 never
+    """The linearity oracle for gradient checks at real widths: at a
+    FIXED sweep count (tol=0 never
     triggers the change rule) the truncated solve map is exactly AFFINE
     in the forcing, so the unit-step response loss(g+dg)-loss(g) is (a)
     homogeneous in the step to machine precision even far from

@@ -87,9 +87,7 @@ def test_omega_scalar_vs_profile_n2(atmos3d):
 def test_omega_3d_deep_73_levels(atmos3d):
     """The reference notebook's deep-atmosphere variant interpolates the
     37-level case to 73 levels (11_Omega_equation.ipynb); run the inversion
-    end-to-end at that depth.  (The TPU f32 form of this problem exceeds
-    whole-volume VMEM residency and takes the z-windowed kernel —
-    tests/test_pallas3d_window.py::test_window3d_plan_shapes.)"""
+    end-to-end at that depth."""
     from xinvert_tpu import Field
     from xinvert_tpu.models import api
 

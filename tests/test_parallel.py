@@ -306,7 +306,7 @@ def test_halo_traffic_one_packed_exchange_per_half_sweep():
     by, bx = ny // my_, nx // mx_
 
     out = solve_fixed_halo(spec, jnp.zeros((ny, nx)), 1.6, 7, mesh=mesh)
-    ref = solve_fixed(spec, jnp.zeros((ny, nx)), 1.6, 7, use_pallas=False)
+    ref = solve_fixed(spec, jnp.zeros((ny, nx)), 1.6, 7, use_kernel=False)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=1e-12, atol=1e-12)
 
@@ -338,7 +338,7 @@ def test_halo_traffic_cross_stencil_full_rings():
     by, bx = ny // my_, nx // mx_
 
     out = solve_fixed_halo(spec, jnp.zeros((ny, nx)), 1.4, 6, mesh=mesh)
-    ref = solve_fixed(spec, jnp.zeros((ny, nx)), 1.4, 6, use_pallas=False)
+    ref = solve_fixed(spec, jnp.zeros((ny, nx)), 1.4, 6, use_kernel=False)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=1e-12, atol=1e-12)
 

@@ -4,12 +4,12 @@ transformations (ops/compensated.py) and mixed-precision iterative
 refinement (refine.solve_refined).
 
 The reference is float64 end-to-end (numba kernels, goldens at 1e-16,
-/root/reference/tests/test_Bretherton.py:41); TPU has no f64.  A single
-f32 state stalls at the relative-residual floor eps*mean|w0*S|/mean|g|
-(~6e-5 on the 96x192 full-sphere Poisson below); the double-float32
-refined state certifies ~1e-8, cross-checked against true f64 arithmetic
-(CPU).  tools/tpu_refine_check.py runs the same certification at 2048^2 on
-the v5e."""
+the reference's tests/test_Bretherton.py:41); the fast path is float32.
+A single f32 state stalls at the relative-residual floor
+eps*mean|w0*S|/mean|g| (~6e-5 on the 96x192 full-sphere Poisson below);
+the double-float32 refined state certifies ~1e-8, cross-checked against
+true f64 arithmetic (CPU).  chip_smoke.py runs the certification at
+2048^2 on a GPU."""
 import dataclasses
 
 import numpy as np
@@ -225,25 +225,24 @@ def test_refined_sharded_mesh():
 
 
 def test_refined_mesh_fast_inner_routing(monkeypatch):
-    """When the decomposition qualifies for the explicit windowed-kernel
-    executor (512x512 on the (2, 4) spatial mesh), solve_refined(mesh=...)
-    routes the inner correction solves through it, and each round still
-    reduces the certified residual."""
+    """solve_refined(mesh=...) routes every inner correction solve through
+    the GSPMD-sharded checked solve (parallel.mesh.solve_sharded), and
+    each round still reduces the certified residual."""
     from xinvert_tpu import stencil, refine
     from xinvert_tpu.parallel import make_grid_mesh
-    from xinvert_tpu.parallel import halo_window as hw
+    from xinvert_tpu.parallel import mesh as pmesh
 
     calls = {"n": 0}
-    real = hw.solve_halo_window
+    real = pmesh.solve_sharded
 
     def counting(*a, **k):
         calls["n"] += 1
         return real(*a, **k)
 
-    monkeypatch.setattr(hw, "solve_halo_window", counting)
+    monkeypatch.setattr(pmesh, "solve_sharded", counting)
 
     rng = np.random.default_rng(5)
-    ny, nx = 512, 512
+    ny, nx = 256, 256
     A = (np.abs(rng.normal(1, 0.1, (ny, nx))) + 0.5).astype(np.float32)
     F = (rng.normal(0, 1, (ny, nx)) * 1e-9).astype(np.float32)
     spec = stencil.standard_2d(jnp.asarray(A), 0.0, jnp.asarray(A),
@@ -251,7 +250,6 @@ def test_refined_mesh_fast_inner_routing(monkeypatch):
                                (1.3e5, 1.0e5), ("fixed", "periodic"))
     mesh = make_grid_mesh(8, batch=1)
     S0 = jnp.zeros((ny, nx), jnp.float32)
-    assert hw.halo_window_applicable(spec, S0.shape, mesh)
     # small sweep budget: the point is the ROUTING and that refinement
     # still makes certified progress with change-rule inner solves
     res = refine.solve_refined(spec, S0, tol=1e-30, max_rounds=1,

@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Engine-level validation: the red-black TPU engine must reach the same
+"""Engine-level validation: the red-black engine must reach the same
 fixed point as a lexicographic reference-semantics oracle, and the control
 flow (flags, overflow) must match the reference behavior."""
 import numpy as np
@@ -53,16 +53,16 @@ def test_standard2d_fixed_point_matches_reference(bcy, bcx, mask):
                                include_cross=False)
     res = solver.solve(spec, jnp.zeros((yc, xc)), omega=omega,
                        tol=1e-14, max_iters=6000)
-    S_tpu = np.asarray(res.S)
+    S_rb = np.asarray(res.S)
 
     assert not bool(np.asarray(res.overflow))
     if near_singular:
         # compare modulo the constant null mode
-        S_tpu = S_tpu - S_tpu.mean()
+        S_rb = S_rb - S_rb.mean()
         S_ref = S_ref - S_ref.mean()
     scale = np.abs(S_ref).max() + 1e-300
-    assert np.allclose(S_tpu, S_ref, atol=2e-7 * scale), \
-        np.abs(S_tpu - S_ref).max() / scale
+    assert np.allclose(S_rb, S_ref, atol=2e-7 * scale), \
+        np.abs(S_rb - S_ref).max() / scale
 
 
 def test_cross_terms_fixed_point():

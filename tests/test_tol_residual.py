@@ -3,7 +3,7 @@
 
 The reference stops on relative change of the mean-|S| norm — a Cauchy
 criterion that can fire while the equation is far from satisfied.  The
-TPU-native extension stops on the TRUE relative discrete residual
+extension stops on the TRUE relative discrete residual
 mean|r|/mean|g| over active cells (what multigrid monitors), certifying
 the folded system is solved to the requested level.
 """
@@ -45,7 +45,7 @@ def test_residual_rule_certifies_solution():
     spec, S0 = _poisson()
     om = optimal_omega(S0.shape)
     res = solve(spec, S0, omega=om, tol=1e-8, max_iters=60000,
-                tol_type="residual", use_pallas=False)
+                tol_type="residual", use_kernel=False)
     assert not bool(np.asarray(res.overflow).any())
     rr = _true_rel_residual(spec, res.S)
     assert rr <= 1e-8, rr
@@ -56,7 +56,7 @@ def test_residual_rule_masked():
     spec, S0 = _poisson(mask=True, bcs=("extend", "periodic"))
     om = optimal_omega(S0.shape)
     res = solve(spec, S0, omega=om, tol=1e-7, max_iters=60000,
-                tol_type="residual", use_pallas=False)
+                tol_type="residual", use_kernel=False)
     assert _true_rel_residual(spec, res.S) <= 1e-7
 
 
@@ -65,7 +65,7 @@ def test_residual_rule_batched():
     S0 = jnp.zeros((3, 32, 40))
     om = optimal_omega((32, 40))
     res = solve(spec, S0, omega=om, tol=1e-8, max_iters=60000,
-                tol_type="residual", use_pallas=False)
+                tol_type="residual", use_kernel=False)
     assert res.iters.shape == (3,)
     for b in range(3):
         assert _true_rel_residual(spec, res.S[b]) <= 1e-8
@@ -77,9 +77,9 @@ def test_residual_vs_change_iterations():
     spec, S0 = _poisson(seed=5)
     om = optimal_omega(S0.shape)
     ch = solve(spec, S0, omega=om, tol=1e-9, max_iters=60000,
-               use_pallas=False)
+               use_kernel=False)
     rs = solve(spec, S0, omega=om, tol=1e-9, max_iters=60000,
-               tol_type="residual", use_pallas=False)
+               tol_type="residual", use_kernel=False)
     assert int(rs.iters) >= int(ch.iters)
     assert _true_rel_residual(spec, rs.S) <= 1e-9
 
@@ -93,7 +93,7 @@ def test_residual_helpers_zero_forcing():
     assert float(_residual_scale(spec0)) > 0
     assert float(_residual_norm(spec0, S0)) == 0.0
     res = solve(spec0, S0, tol=1e-10, max_iters=100, tol_type="residual",
-                use_pallas=False)
+                use_kernel=False)
     assert int(res.iters) <= 2 and np.asarray(res.S).max() == 0.0
 
 
@@ -115,7 +115,7 @@ def test_residual_rule_through_public_api():
 
 
 def test_residual_rule_with_cheby_scheme():
-    """Both TPU-native extensions compose: Chebyshev factors with the
+    """Both extensions compose: Chebyshev factors with the
     residual stopping rule."""
     spec, S0 = _poisson(seed=11)
     om = optimal_omega(S0.shape)

@@ -95,9 +95,12 @@ def main():
             })
             print(w["notebook"], w["case"], s, ours, flush=True)
 
+    dev = jax.devices()[0]
     out = {
         "what": "end-to-end parity on the reference's notebook workloads "
-                "(shipped fixtures), scheme='lexico' f64 CPU",
+                "(shipped fixtures), scheme='lexico' f64",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": jax.device_count()},
         "loop_convention": "published 'loops L' = L+1 sweeps executed "
                            "(reference counter off-by-one, "
                            "numbas.py:278-414); 'ours.sweeps' counts "

@@ -3,8 +3,8 @@
 
 The committed suite runs a handful of seeds per fuzz test (CI budget);
 this tool re-runs them across a wide seed range for pre-release
-confidence sweeps.  Round-4 soak: seeds 100-129, 75 ok / 30 skipped
-(inapplicable random configs) / 0 failures.
+confidence sweeps (a skip is a random configuration no window plan
+fits).
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/soak_fuzz.py [start] [stop]
@@ -23,7 +23,8 @@ sys.path.insert(0, _ROOT)
 sys.path.insert(0, os.path.join(_ROOT, "tests"))
 from _pytest.outcomes import Skipped  # noqa: E402
 
-import test_fuzz_kernels as m         # noqa: E402
+import test_sor2d as mk               # noqa: E402
+import test_sharded_fuzz as ms        # noqa: E402
 import test_lexico as ml              # noqa: E402
 
 
@@ -44,10 +45,11 @@ def main():
             traceback.print_exc()
 
     for seed in range(start, stop):
-        run(m.test_fuzz_windowed_kernel, seed)
-        run(m.test_fuzz_sharded_windowed, seed)
-        run(m.test_fuzz_sharded_3d, seed)
-        run(m.test_fuzz_checked_sharded_3d, seed)     # round 5
+        run(mk.test_fuzz_executor, seed)
+        run(ms.test_fuzz_sharded_2d, seed)
+        run(ms.test_fuzz_sharded_3d, seed)
+        run(ms.test_fuzz_checked_sharded_3d, seed)
+        run(ms.test_fuzz_checked_sharded_2d, seed)
         run(ml.test_checked_lexico_stopping_matches_python_loop, seed)
         print(f"seed {seed} done {counts}", flush=True)
     print("SOAK COMPLETE:", counts)

@@ -3,7 +3,7 @@
 
 The reference framework (miniufo/xinvert) exposes its whole API through
 ``xarray.DataArray`` (see /root/reference/xinvert/apps.py).  xarray is not a
-dependency of this TPU-native rebuild: the compute core is pure JAX on raw
+dependency of this rebuild: the compute core is pure JAX on raw
 arrays, and this module provides the small labelled-array adapter the public
 API and tests need (dims + 1-D coords + broadcasting arithmetic).  If real
 xarray objects are passed to the public API they are duck-type converted via

@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Grid/geometry descriptor for the TPU-native elliptic solvers.
+"""Grid/geometry descriptor for the elliptic solvers.
 
 Encodes the uniform-grid semantics of the reference framework
 (/root/reference/xinvert/apps.py:2162-2379): uniform spacing enforced per

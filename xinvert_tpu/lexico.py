@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Lexicographic Gauss-Seidel executor: the reference's exact iterate
-sequence, TPU-parallelised.
+sequence, data-parallel.
 
 The red-black engine (solver.py) reaches the same fixed point as the
 reference but along a different transient, so fixed-ITERATION comparisons

@@ -3,7 +3,7 @@
 animate_iteration and multigrid.
 
 Mirrors the reference application layer (/root/reference/xinvert/apps.py)
-function-for-function, but TPU-native underneath: the forcing's non-core dims
+function-for-function, but vectorised underneath: the forcing's non-core dims
 become one vectorised batch axis solved in a single ``lax.while_loop`` (the
 reference loops slices sequentially, core.py:129-139), coefficients compile to
 a :class:`~xinvert_tpu.stencil.StencilSpec`, and a red-black SOR engine runs
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from ..field import Field, as_field
 from ..grid import Grid
-from ..solver import SolveResult, solve, solve_trajectory
+from ..solver import SolveResult, choose_sweep, solve, solve_trajectory
 from . import problems
 from .params import default_iParams, default_mParams, merge_params
 
@@ -131,7 +131,7 @@ def _init_state(vals, Fdef, icbc, grid, ft, warm=False):
     """Initial guess per the reference's __mask_FS (apps.py:2112-2159):
     zeros without icbc; with icbc, icbc on undef cells and non-periodic
     domain edges, zeros elsewhere.  ``warm=True`` (the ``warmStart``
-    iParam, a TPU-native extension) instead uses icbc EVERYWHERE as a true
+    iParam, an extension) instead uses icbc EVERYWHERE as a true
     warm start — the reference zeroes interior cells even with icbc, which
     makes cascade/checkpoint restarts ineffective."""
     if icbc is None:
@@ -157,36 +157,18 @@ def _init_state(vals, Fdef, icbc, grid, ft, warm=False):
     return np.where(mask, ic, 0.0)
 
 
-def _auto_check_every(user_iParams, iP) -> int:
-    """Amortised convergence checking on TPU (round-1 VERDICT item 5).
-
-    The reference checks convergence after EVERY sweep (numbas.py:401-414);
-    on TPU that costs a norm reduction — and on the Pallas paths a kernel
-    launch — per sweep.  When the user did not ask for a specific cadence,
-    the TPU f32 path checks every min(32, mxLoop/10) sweeps: termination
-    can only land later than the per-sweep rule (never earlier), so the
-    tolerance contract still holds.  CPU/f64 (the parity platform) and any
-    explicit ``checkEvery`` keep the reference cadence.
-
-    Round-3 stepper (fused in-kernel norm + split-state while carry +
-    branch-free loop body, ops/pallas_sor_window.make_window_stepper)
-    measured on the v5e (2048^2 masked Poisson, 4000 sweeps): checked
-    solve at cadence 32 runs 1.015x solve_fixed (round 2's per-call path:
-    1.17x), cadence 8 1.11x — so cadence 32 tests every 0.8% of the sweep
-    budget at ~1.5% cost (tools/tpu_cadence_ab.py).
-    """
+def _auto_check_every(user_iParams, iP, spec, S0) -> int:
+    """The convergence-check cadence: the user's ``checkEvery`` when
+    given, else the default of ``solver.choose_sweep`` (every sweep, as the
+    reference does, except float32 solves on a GPU, which test every
+    min(32, mxLoop/10) sweeps)."""
     if user_iParams and "checkEvery" in user_iParams:
         return int(user_iParams["checkEvery"])
     ce = int(iP.get("checkEvery", 1))
-    if iP.get("scheme") == "lexico":
-        # the point of paying for the serial lexicographic engine is the
-        # reference's PER-SWEEP stopping rule (to-the-digit parity with
-        # published runs) — never amortise it behind the user's back
+    if ce != 1:
         return ce
-    if ce == 1 and jax.default_backend() == "tpu" \
-            and not jax.config.jax_enable_x64:
-        ce = max(1, min(32, int(iP["mxLoop"]) // 10))
-    return ce
+    return choose_sweep(spec, S0, iP.get("scheme", "sor"),
+                        int(iP["mxLoop"])).check_every
 
 
 def _validate_bcs(iParams, ndim):
@@ -311,7 +293,7 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
     if res is None and iP.get("tolType", "change") == "refined":
         # mixed-precision iterative refinement (refine.solve_refined):
         # double-float32 state + EFT-certified residuals — f64-class
-        # certification on f32 TPU hardware.  `tolerance` is the certified
+        # certification from f32 arithmetic.  `tolerance` is the certified
         # relative residual; `mxLoop` bounds each inner correction solve.
         from ..refine import solve_refined
         from ..solver import SolveResult
@@ -335,70 +317,48 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         res = solve_streamed(spec, np.asarray(S0), omega,
                              tol=iP["tolerance"], max_iters=iP["mxLoop"],
                              chunk=int(iP["streamChunk"]),
-                             check_every=_auto_check_every(iParams, iP),
+                             check_every=_auto_check_every(iParams, iP,
+                                                           spec, S0),
                              scheme=iP.get("scheme", "sor"),
                              tol_type=iP.get("tolType", "change"))
     if res is None and iP.get("mesh") is not None:
-        # multi-device: explicit halo-window executor (per-device fused
-        # kernels + ppermute ghost rings, reference stopping semantics)
-        # when the decomposition qualifies, else the GSPMD-sharded solve
+        # multi-device: the GSPMD-sharded checked solve (parallel/mesh.py)
         mesh = iP["mesh"]
         if not set(mesh.shape) <= {"batch", "y", "x"}:
             raise ValueError(
                 "iParams['mesh'] axes must be named 'batch'/'y'/'x' "
                 f"(got {tuple(mesh.shape)}): non-core dims shard over "
                 "'batch', the core grid over ('y', 'x')")
-        from ..parallel.halo_window import (halo_window_applicable,
-                                            solve_halo_window)
-        from ..parallel.halo_window3d import (halo_window3d_applicable,
-                                              solve_halo_window3d)
         S0j = jnp.asarray(S0)
-        tt = iP.get("tolType", "change")
-        if (iP.get("scheme", "sor") == "sor"
-                and tt in ("change", "residual")
-                and halo_window_applicable(spec, S0j.shape, mesh)):
-            res = solve_halo_window(
-                spec, S0j, omega, iP["tolerance"], iP["mxLoop"],
-                check_every=_auto_check_every(iParams, iP), mesh=mesh,
-                tol_type=tt)
-        elif (iP.get("scheme", "sor") == "sor"
-                and tt in ("change", "residual")
-                and halo_window3d_applicable(spec, S0j.shape, mesh)):
-            # checked sharded 3-D fast path (round 5): per-device
-            # z-windowed kernels + reference stopping (or the TRUE
-            # residual rule) on-mesh
-            res = solve_halo_window3d(
-                spec, S0j, omega, iP["tolerance"], iP["mxLoop"],
-                check_every=_auto_check_every(iParams, iP), mesh=mesh,
-                tol_type=tt)
-        else:
-            from ..parallel.mesh import solve_sharded
-            if any(ax not in mesh.shape for ax in ("batch", "y", "x")):
-                # the GSPMD pspecs name all three axes; lift a partial
-                # mesh (e.g. a ('y',) row mesh) with size-1 axes,
-                # TRANSPOSING the existing axes into canonical
-                # (batch, y, x) order so each device keeps the mesh
-                # coordinate the user laid out (a plain reshape would
-                # scramble e.g. a ('y', 'batch') mesh's placement)
-                from jax.sharding import Mesh as _Mesh
-                order = [ax for ax in ("batch", "y", "x")
-                         if ax in mesh.shape]
-                perm = [mesh.axis_names.index(ax) for ax in order]
-                devs = np.transpose(np.asarray(mesh.devices), perm)
-                devs = devs.reshape(
-                    (mesh.shape.get("batch", 1), mesh.shape.get("y", 1),
-                     mesh.shape.get("x", 1)))
-                mesh = _Mesh(devs, ("batch", "y", "x"))
-            res = solve_sharded(spec, S0j, mesh=mesh, omega=omega,
-                                tol=iP["tolerance"],
-                                max_iters=iP["mxLoop"],
-                                check_every=_auto_check_every(iParams, iP),
-                                scheme=iP.get("scheme", "sor"),
-                                tol_type=iP.get("tolType", "change"))
+        from ..parallel.mesh import solve_sharded
+        if any(ax not in mesh.shape for ax in ("batch", "y", "x")):
+            # the GSPMD pspecs name all three axes; lift a partial
+            # mesh (e.g. a ('y',) row mesh) with size-1 axes,
+            # TRANSPOSING the existing axes into canonical
+            # (batch, y, x) order so each device keeps the mesh
+            # coordinate the user laid out (a plain reshape would
+            # scramble e.g. a ('y', 'batch') mesh's placement)
+            from jax.sharding import Mesh as _Mesh
+            order = [ax for ax in ("batch", "y", "x")
+                     if ax in mesh.shape]
+            perm = [mesh.axis_names.index(ax) for ax in order]
+            devs = np.transpose(np.asarray(mesh.devices), perm)
+            devs = devs.reshape(
+                (mesh.shape.get("batch", 1), mesh.shape.get("y", 1),
+                 mesh.shape.get("x", 1)))
+            mesh = _Mesh(devs, ("batch", "y", "x"))
+        res = solve_sharded(spec, S0j, mesh=mesh, omega=omega,
+                            tol=iP["tolerance"],
+                            max_iters=iP["mxLoop"],
+                            check_every=_auto_check_every(
+                                iParams, iP, spec, S0j),
+                            scheme=iP.get("scheme", "sor"),
+                            tol_type=iP.get("tolType", "change"))
     if res is None:
-        res = solve(spec, jnp.asarray(S0), omega=omega,
+        S0j = jnp.asarray(S0)
+        res = solve(spec, S0j, omega=omega,
                     tol=iP["tolerance"], max_iters=iP["mxLoop"],
-                    check_every=_auto_check_every(iParams, iP),
+                    check_every=_auto_check_every(iParams, iP, spec, S0j),
                     scheme=iP.get("scheme", "sor"),
                     tol_type=iP.get("tolType", "change"))
     global LAST_SOLVE
@@ -511,7 +471,7 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
 
 def invert_Poisson_mg(F, dims, coords="lat-lon", icbc=None, mParams=None,
                       iParams=None, tol: float = 1e-8, max_cycles: int = 60):
-    """Poisson inversion via geometric multigrid (TPU-native extension).
+    """Poisson inversion via geometric multigrid (an extension).
 
     Same coefficients/masking as :func:`invert_Poisson`, solved with
     V-cycles to a RESIDUAL tolerance instead of SOR's solution-change rule
@@ -546,7 +506,7 @@ def _mg_with_g(level, g0):
 def invert_omega_mg(F, dims, coords="lat-lon", icbc=None, mParams=None,
                     iParams=None, tol: float = 1e-6, max_cycles: int = 30):
     """3-D QG-omega inversion via semicoarsened multigrid with z/x-line
-    smoothing (TPU-native extension; the reference's abandoned intent at
+    smoothing (an extension; the reference's abandoned intent at
     apps.py:1061-1135).  Same coefficients as :func:`invert_omega`; solves
     to a RESIDUAL tolerance in ~10 cycles instead of hundreds of sweeps."""
     from ..mg import build_pyramid_standard3d
@@ -573,7 +533,7 @@ def invert_omega_mg(F, dims, coords="lat-lon", icbc=None, mParams=None,
 def invert_StommelMunk_mg(curl, dims, coords="lat-lon", icbc=None,
                           mParams=None, iParams=None, tol: float = 1e-6,
                           max_cycles: int = 40):
-    """Stommel-Munk gyre via biharmonic multigrid (TPU-native extension).
+    """Stommel-Munk gyre via biharmonic multigrid (an extension).
 
     Same coefficients as :func:`invert_StommelMunk`; the 13/17-point
     biharmonic stencil needs heavier smoothing (nu=3) but converges in a
@@ -622,7 +582,7 @@ def _std2d_mg_build(coeffs_fn):
 
 def invert_PV2D_mg(PV, dims, coords="z-lat", icbc=None, mParams=None,
                    iParams=None, tol: float = 1e-8, max_cycles: int = 60):
-    """QG PV inversion in a vertical plane via multigrid (TPU-native
+    """QG PV inversion in a vertical plane via multigrid (an
     extension; same coefficients as :func:`invert_PV2D`,
     apps.py:1556-1579)."""
     return _invert_mg(PV, dims, coords, icbc,
@@ -635,7 +595,7 @@ def invert_PV2D_mg(PV, dims, coords="z-lat", icbc=None, mParams=None,
 def invert_Eliassen_mg(F, dims, coords="z-lat", icbc=None, mParams=None,
                        iParams=None, tol: float = 1e-8,
                        max_cycles: int = 60):
-    """Sawyer-Eliassen overturning via multigrid (TPU-native extension;
+    """Sawyer-Eliassen overturning via multigrid (an extension;
     same cross-coupled coefficients as :func:`invert_Eliassen`,
     apps.py:1582-1606 — the pyramid coarsens A/B/C together)."""
     return _invert_mg(F, dims, coords, icbc,
@@ -648,7 +608,7 @@ def invert_Eliassen_mg(F, dims, coords="z-lat", icbc=None, mParams=None,
 def invert_geostrophic_mg(lapPhi, dims, coords="lat-lon", icbc=None,
                           mParams=None, iParams=None, tol: float = 1e-8,
                           max_cycles: int = 60):
-    """Geostrophic streamfunction via multigrid (TPU-native extension;
+    """Geostrophic streamfunction via multigrid (an extension;
     same coefficients incl. the near-equator f regularisation as
     :func:`invert_geostrophic`, apps.py:1889-1931)."""
     return _invert_mg(lapPhi, dims, coords, icbc,
@@ -689,7 +649,7 @@ def _std2de_mg_build(coeffs_fn):
 def invert_RefState_mg(PV, dims, coords="z-lat", icbc=None, mParams=None,
                        iParams=None, tol: float = 1e-8,
                        max_cycles: int = 60):
-    """Balanced symmetric-vortex PV inversion via multigrid (TPU-native
+    """Balanced symmetric-vortex PV inversion via multigrid (an
     extension; same coefficients — including the PV-dependent C plane —
     as :func:`invert_RefState`, apps.py:1440-1467).  Single-slice only:
     the operator depends on the PV field itself."""
@@ -710,7 +670,7 @@ def invert_RefState_mg(PV, dims, coords="z-lat", icbc=None, mParams=None,
 def invert_Fofonoff_mg(F, dims, coords="cartesian", icbc=None,
                        mParams=None, iParams=None, tol: float = 1e-8,
                        max_cycles: int = 60):
-    """Fofonoff inviscid free mode via multigrid (TPU-native extension;
+    """Fofonoff inviscid free mode via multigrid (an extension;
     same +Eψ coefficients as :func:`invert_Fofonoff`, apps.py:1975-2013
     — the screening term -c0ψ coarsens with the fluxes)."""
     return _invert_mg(F, dims, coords, icbc,
@@ -724,7 +684,7 @@ def invert_BrethertonHaidvogel_mg(h, dims, coords="cartesian", icbc=None,
                                   mParams=None, iParams=None,
                                   tol: float = 1e-8, max_cycles: int = 60):
     """Bretherton-Haidvogel flow over topography via multigrid
-    (TPU-native extension; same +Eψ coefficients as
+    (an extension; same +Eψ coefficients as
     :func:`invert_BrethertonHaidvogel`, apps.py:1934-1972)."""
     return _invert_mg(h, dims, coords, icbc,
                       ["f0", "beta", "D", "lambda", "g", "Omega",
@@ -737,7 +697,7 @@ def invert_BrethertonHaidvogel_mg(h, dims, coords="cartesian", icbc=None,
 def invert_GillMatsuno_test_mg(Q, dims, coords="lat-lon", icbc=None,
                                mParams=None, iParams=None,
                                tol: float = 1e-6, max_cycles: int = 40):
-    """Gill-Matsuno (standardised +Eψ form) via multigrid (TPU-native
+    """Gill-Matsuno (standardised +Eψ form) via multigrid (an
     extension; same coefficients as :func:`invert_GillMatsuno_test`,
     apps.py:1660-1709)."""
     return _invert_mg(Q, dims, coords, icbc,
@@ -751,7 +711,7 @@ def invert_GillMatsuno_test_mg(Q, dims, coords="lat-lon", icbc=None,
 def invert_Stommel_test_mg(curl, dims, coords="lat-lon", icbc=None,
                            mParams=None, iParams=None, tol: float = 1e-6,
                            max_cycles: int = 40):
-    """Stommel gyre (standardised +Eψ form) via multigrid (TPU-native
+    """Stommel gyre (standardised +Eψ form) via multigrid (an
     extension; same coefficients as :func:`invert_Stommel_test`,
     apps.py:1751-1790 — the antisymmetric B/C cross-flux beta term rides
     the pyramid's diagonal-offset weights)."""
@@ -788,7 +748,7 @@ def _general_mg_build(coeffs_fn, ndim):
 def invert_GillMatsuno_mg(Q, dims, coords="lat-lon", icbc=None,
                           mParams=None, iParams=None, tol: float = 1e-6,
                           max_cycles: int = 40):
-    """Gill-Matsuno response via multigrid (TPU-native extension).
+    """Gill-Matsuno response via multigrid (an extension).
 
     Same coefficients as :func:`invert_GillMatsuno` (the damped advective
     general-2D family the reference iterates 355-600 sweeps to only ~1e-5,
@@ -805,7 +765,7 @@ def invert_GillMatsuno_mg(Q, dims, coords="lat-lon", icbc=None,
 def invert_Stommel_mg(curl, dims, coords="lat-lon", icbc=None,
                       mParams=None, iParams=None, tol: float = 1e-6,
                       max_cycles: int = 40):
-    """Stommel gyre via multigrid (TPU-native extension).
+    """Stommel gyre via multigrid (an extension).
 
     The Stommel operator is advection-dominated (western boundary layer);
     coarse levels upwind the beta term so smoothing stays stable while the
@@ -821,7 +781,7 @@ def invert_Stommel_mg(curl, dims, coords="lat-lon", icbc=None,
 def invert_StommelArons_mg(Q, dims, coords="lat-lon", icbc=None,
                            mParams=None, iParams=None, tol: float = 1e-6,
                            max_cycles: int = 40):
-    """Stommel-Arons abyssal circulation via multigrid (TPU-native
+    """Stommel-Arons abyssal circulation via multigrid (an
     extension; same coefficients as :func:`invert_StommelArons`,
     apps.py:1839)."""
     return _invert_mg(Q, dims, coords, icbc,
@@ -834,7 +794,7 @@ def invert_StommelArons_mg(Q, dims, coords="lat-lon", icbc=None,
 def invert_3DOcean_mg(F, dims, coords="lat-lon", icbc=None,
                       mParams=None, iParams=None, tol: float = 1e-6,
                       max_cycles: int = 30):
-    """3-D damped ocean flow via semicoarsened multigrid (TPU-native
+    """3-D damped ocean flow via semicoarsened multigrid (an
     extension; same coefficients as :func:`invert_3DOcean`, apps.py:2055).
     z-line smoothing handles the k/N^2 vertical stiffness; coarse levels
     upwind the advective terms."""

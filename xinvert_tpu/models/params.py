@@ -24,12 +24,12 @@ default_iParams = {
                          # for the advective/biharmonic problems)
     "printInfo": True,
     "debug": False,
-    "checkEvery": 1,     # TPU-native extension: amortise the convergence
+    "checkEvery": 1,     # extension: amortise the convergence
                          # reduction over k sweeps (k=1 = reference parity)
-    "warmStart": False,  # TPU-native extension: use icbc EVERYWHERE as the
+    "warmStart": False,  # extension: use icbc EVERYWHERE as the
                          # initial guess (the reference keeps icbc only on
                          # domain edges and undef cells, apps.py:2144-2156)
-    "scheme": "sor",     # TPU-native extension: 'cheby' runs the cyclic
+    "scheme": "sor",     # extension: 'cheby' runs the cyclic
                          # Chebyshev semi-iterative factor sequence (same
                          # fixed point, near-optimal transient decay);
                          # 'direct' solves x-invariant 2-D problems exactly
@@ -42,26 +42,25 @@ default_iParams = {
                          # iterate sequence (lexico.py) with the per-sweep
                          # stopping rule — use for to-the-digit parity with
                          # published xinvert runs (tests/test_notebook_parity)
-    "tolType": "change", # TPU-native extension: 'residual' stops on the
+    "tolType": "change", # extension: 'residual' stops on the
                          # true relative discrete residual mean|r|/mean|g|
                          # instead of the reference's solution-change rule;
                          # 'refined' runs mixed-precision iterative
                          # refinement (refine.solve_refined) to a CERTIFIED
                          # relative residual `tolerance` — f64-class
-                         # certification on f32 TPU hardware (the (hi, lo)
+                         # certification from f32 arithmetic (the (hi, lo)
                          # state pair is kept in models.api.LAST_REFINE;
                          # composes with 'mesh' — the correction solves
                          # and compensated residual passes then run
                          # GSPMD-sharded; takes precedence over
                          # 'streamChunk')
-    "streamChunk": None, # TPU-native extension: int -> stream the batch
+    "streamChunk": None, # extension: int -> stream the batch
                          # (non-core) dims through the device this many
                          # slices at a time (stream.solve_streamed), for
                          # batches larger than HBM; None -> resident solve
-    "mesh": None,        # TPU-native extension: a jax.sharding.Mesh ->
-                         # solve sharded over it (the explicit halo-window
-                         # executor when the decomposition qualifies, else
-                         # the GSPMD path); None -> single-device solve
+    "mesh": None,        # extension: a jax.sharding.Mesh -> solve
+                         # sharded over it (GSPMD, parallel/mesh.py);
+                         # None -> single-device solve
 }
 
 default_mParams = {

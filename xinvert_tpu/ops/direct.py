@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Direct spectral solve for x-invariant 2-D stencil problems.
 
-TPU-native capability the reference lacks (its FFT experiments were
+A capability the reference lacks (its FFT experiments were
 abandoned in comments, /root/reference/tests/test_LLC4320Poisson.py:108-217):
 for a 2-D, non-biharmonic :class:`~xinvert_tpu.stencil.StencilSpec` whose
 weight planes do not vary along x, with periodic x and an unmasked interior,
@@ -10,12 +10,12 @@ the real FFT along x block-diagonalises the folded system
     sum_k w_k S[. + off_k] + w0 S = -g
 
 into one complex tridiagonal system in y per zonal wavenumber — solvable
-exactly in a single pass (Thomas elimination as a ``lax.scan`` linear
-recurrence, vectorised over every mode).  This covers the reference's
+exactly in a single pass (Thomas elimination, vectorised over every
+mode).  This covers the reference's
 canonical global problems — Poisson/Helmholtz streamfunction,
 Gill-Matsuno (±test form), geostrophic balance — at machine precision in
-one shot instead of hundreds-to-thousands of SOR sweeps, and it maps
-perfectly onto TPU: one batched FFT + one vectorised scan, no iteration.
+one shot instead of hundreds-to-thousands of SOR sweeps: one batched
+FFT + one vectorised line solve, no iteration.
 
 NON-periodic x (fixed or extend) is covered too when the x-coupling is
 left-right symmetric per row and there are no cross/advective x terms
@@ -23,7 +23,7 @@ left-right symmetric per row and there are no cross/advective x terms
 ``c(y)·T0`` with ``T0`` the unit Dirichlet tridiagonal, so one host-side
 eigendecomposition of ``T0`` (computed once per spec at trace time)
 block-diagonalises the system into ``nxi`` REAL tridiagonal solves in y,
-and the transform pair is a plain matmul — MXU-native.  Note the
+and the transform pair is a plain matmul.  Note the
 reference's 'extend' is a ROW pre-pass only (numbas.py:284-310): a
 non-periodic trailing dim keeps its initial boundary columns whatever
 its BC label, i.e. it is Dirichlet — replicated here, so the system is
@@ -58,6 +58,13 @@ import jax.numpy as jnp
 __all__ = ["direct_applicable", "solve_direct",
            "masked_direct_applicable", "solve_direct_masked"]
 
+
+
+def _mm(a, b):
+    """Matmul at full float32 (or float64) precision: a GPU would
+    otherwise run float32 products in TF32, about three decimal digits,
+    and lose the direct solve's machine-precision residual."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 def _offset_groups(offsets):
     """Split offsets by dy in {-1, 0, +1}; None if any |dy| > 1."""
@@ -197,24 +204,22 @@ def direct_applicable(spec, S_shape) -> bool:
 def _thomas_modes(sub, dia, sup, rhs):
     """Thomas elimination vectorised over the trailing mode axis.
 
-    sub/dia/sup: (n, M) complex — sub[0] and sup[-1] are ignored;
-    rhs: (..., n, M).  Returns x with rhs's shape.
+    sub/dia/sup: (n, M) — sub[0] and sup[-1] are ignored; rhs: (..., n, M).
+    Returns x with rhs's shape.
 
-    Routed through the LOG-DEPTH batched Thomas
-    (ops/tridiag.tridiag_solve_pscan, complex dtypes included): the
-    previous 2n-step sequential ``lax.scan`` pair cost ~2 us/step on TPU
-    and dominated the 2048^2 direct solve's 18 ms/call.
+    Sequential elimination (ops/tridiag.tridiag_solve): the low modes'
+    systems are only weakly diagonally dominant, where the log-depth
+    (associative-scan) elimination loses accuracy — on a 2048^2 global
+    Poisson in float32 it landed 2e-2 from the float64 solution on the CPU
+    and 0.8 on an H100 (700 W); the sequential one lands 6e-4 on the CPU,
+    the float32 conditioning bound.
     """
-    from .tridiag import tridiag_solve_pscan
+    from .tridiag import tridiag_solve
 
-    subT = jnp.moveaxis(sub, 0, -1)            # (M, n)
-    diaT = jnp.moveaxis(dia, 0, -1)
-    supT = jnp.moveaxis(sup, 0, -1)
-    rhsT = jnp.moveaxis(rhs, -2, -1)           # (..., M, n)
-    # bands stay at (M, n): the solver computes the Moebius elimination
-    # once per matrix and broadcasts only the affine scans over any
-    # leading rhs batch (e.g. the capacitance path's unit responses)
-    x = tridiag_solve_pscan(subT[..., 1:], diaT, supT[..., :-1], rhsT)
+    x = tridiag_solve(jnp.moveaxis(sub, 0, -1)[..., 1:],
+                      jnp.moveaxis(dia, 0, -1),
+                      jnp.moveaxis(sup, 0, -1)[..., :-1],
+                      jnp.moveaxis(rhs, -2, -1))
     return jnp.moveaxis(x, -1, -2)
 
 
@@ -309,7 +314,7 @@ def _solve_direct_sym_jit(sub_rows, sup_rows, c_rows, w0_rows, Q, lam, g,
     # interior column is c(y)
     rhs = rhs.at[..., :, 0].add(-c_rows * S0[..., 1:-1, 0])
     rhs = rhs.at[..., :, -1].add(-c_rows * S0[..., 1:-1, -1])
-    rhsm = rhs @ Q                                 # x -> eigenmode space
+    rhsm = _mm(rhs, Q)                             # x -> eigenmode space
 
     sub = jnp.broadcast_to(sub_rows[:, None], (nyi, nxi))
     sup = jnp.broadcast_to(sup_rows[:, None], (nyi, nxi))
@@ -321,13 +326,13 @@ def _solve_direct_sym_jit(sub_rows, sup_rows, c_rows, w0_rows, Q, lam, g,
         sub = sub.at[0].set(0.0)
         sup = sup.at[-1].set(0.0)
     else:
-        X0 = S0[..., 0, 1:-1] @ Q                  # Dirichlet rows (icbc)
-        X1 = S0[..., -1, 1:-1] @ Q
+        X0 = _mm(S0[..., 0, 1:-1], Q)              # Dirichlet rows (icbc)
+        X1 = _mm(S0[..., -1, 1:-1], Q)
         rhsm = rhsm.at[..., 0, :].add(-sub[0] * X0)
         rhsm = rhsm.at[..., -1, :].add(-sup[-1] * X1)
 
     X = _thomas_modes(sub, dia, sup, rhsm)
-    Sin = (X @ Q.T).astype(rdtype)                 # eigenmode space -> x
+    Sin = _mm(X, Q.T).astype(rdtype)               # eigenmode space -> x
 
     left = jnp.broadcast_to(S0[..., 1:-1, :1], bshape + (nyi, 1))
     right = jnp.broadcast_to(S0[..., 1:-1, -1:], bshape + (nyi, 1))

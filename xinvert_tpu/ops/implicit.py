@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Differentiable inversions: implicit differentiation through the SOR
-solve (round 5; a TPU-native capability with no reference analog —
+solve (a capability with no reference analog —
 gradients of an inverted field enable sensitivity analysis, data
 assimilation and parameter estimation around any ``invert_*`` physics).
 
@@ -21,8 +21,8 @@ theorem the VJP needs ONE adjoint solve with the TRANSPOSE operator:
 and the transpose operator is itself a stencil on the same grid:
 ``M^T``'s weight for offset ``o`` at cell ``i`` is ``w_{-o}(i+o)`` —
 plane rolls of the flipped-offset weights (:func:`transpose_spec`) — so
-the adjoint solve runs on the SAME engine (red-black SOR, the Pallas
-kernels, multigrid, a mesh...) at the same speed as the forward solve.
+the adjoint solve runs on the SAME engine (red-black SOR, the fused
+sweep kernel, multigrid, a mesh...) at the same speed as the forward solve.
 
 Accuracy: gradients are exact for the exactly-solved system; with
 iterative solves the error is O(forward tol + adjoint tol).  Pinned
@@ -109,11 +109,11 @@ def solve_implicit(spec: StencilSpec, S0, omega=None, tol: float = 1e-10,
         # interior — so the plain implicit formulation is wrong for them.
         # The (extend, periodic) radius-1 no-cross class (the flagship
         # global Poisson family) folds the copy into the stencil
-        # (ops/pallas_sor_window._fold_extend): boundary-adjacent rows
+        # (stencil._fold_extend): boundary-adjacent rows
         # absorb their boundary weight, boundary rows become inert, and
         # the extension is re-applied as a plain differentiable jnp op —
         # the fixed point (and hence the gradient) is identical.
-        from .pallas_sor_window import _extend_foldable, _fold_extend
+        from ..stencil import _extend_foldable, _fold_extend
         from ..solver import _apply_extend
         if spec.ndim == 2 and _extend_foldable(spec):
             fspec = _fold_extend(spec)

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Tridiagonal (Thomas) solvers, plain and cyclic.
 
-TPU-native equivalents of the reference's exported ``trace``/``traceCyclic``
+JAX equivalents of the reference's exported ``trace``/``traceCyclic``
 (/root/reference/xinvert/numbas.py:1590-1685): the Thomas elimination is a
 linear recurrence expressed with ``lax.scan`` so it jits/vmaps cleanly; the
 cyclic variant removes the periodic corner entries with the standard
@@ -18,15 +18,18 @@ __all__ = ["trace", "traceCyclic", "tridiag_solve",
 
 @jax.jit
 def tridiag_solve(a, b, c, d):
-    """Solve a tridiagonal system: a sub-diagonal (N-1), b diagonal (N),
-    c super-diagonal (N-1), d rhs (N)."""
-    a = jnp.asarray(a)
-    b = jnp.asarray(b)
-    c = jnp.asarray(c)
-    d = jnp.asarray(d)
-    n = b.shape[0]
-    a_full = jnp.concatenate([jnp.zeros((1,), a.dtype), a])      # a[i] couples i,i-1
-    c_full = jnp.concatenate([c, jnp.zeros((1,), c.dtype)])
+    """Solve tridiagonal systems along the last axis: a sub-diagonal (N-1),
+    b diagonal (N), c super-diagonal (N-1), d rhs (N), with leading batch
+    axes broadcast.  Sequential Thomas elimination: two length-N
+    ``lax.scan``s, the accurate choice for the weakly dominant systems of
+    elliptic operators."""
+    a, b, c, d = (jnp.asarray(x) for x in (a, b, c, d))
+    dtype = jnp.result_type(a, b, c, d)
+    zero = jnp.zeros(a.shape[:-1] + (1,), dtype)
+    a_full = jnp.concatenate([zero, a.astype(dtype)], -1)  # couples i, i-1
+    c_full = jnp.concatenate([c.astype(dtype), zero], -1)
+    a_full, b, c_full, d = (jnp.moveaxis(x, -1, 0) for x in jnp.broadcast_arrays(
+        a_full, b.astype(dtype), c_full, d.astype(dtype)))
 
     # forward elimination: cp[i] = c[i]/(b[i]-a[i]*cp[i-1]),
     #                      dp[i] = (d[i]-a[i]*dp[i-1])/(b[i]-a[i]*cp[i-1])
@@ -38,9 +41,8 @@ def tridiag_solve(a, b, c, d):
         dp = (di - ai * dp_prev) / denom
         return (cp, dp), (cp, dp)
 
-    (_, _), (cp, dp) = jax.lax.scan(
-        fwd, (jnp.zeros((), b.dtype), jnp.zeros((), b.dtype)),
-        (a_full, b, c_full, d))
+    init = jnp.zeros_like(b[0])
+    _, (cp, dp) = jax.lax.scan(fwd, (init, init), (a_full, b, c_full, d))
 
     # back substitution: x[i] = dp[i] - cp[i]*x[i+1]
     def bwd(x_next, t):
@@ -48,8 +50,8 @@ def tridiag_solve(a, b, c, d):
         x = dpi - cpi * x_next
         return x, x
 
-    _, xs = jax.lax.scan(bwd, jnp.zeros((), b.dtype), (cp, dp), reverse=True)
-    return xs
+    _, xs = jax.lax.scan(bwd, init, (cp, dp), reverse=True)
+    return jnp.moveaxis(xs, 0, -1)
 
 
 def _affine_scan(A, B, reverse=False):
@@ -77,8 +79,8 @@ def tridiag_solve_pscan(a, b, c, d):
 
     Same system convention as :func:`tridiag_solve` (a: N-1 subdiagonal,
     b: N diagonal, c: N-1 superdiagonal, d: N rhs), with arbitrary
-    leading batch axes.  The sequential solver's two length-N ``lax.scan``s
-    cost ~2 us per step on TPU (a 2048-point line pays ~8 ms); here the
+    leading batch axes.  The sequential solver runs two length-N
+    ``lax.scan``s, one step at a time; here the
     forward elimination's rational recurrence
     ``cp_i = c_i / (b_i - a_i cp_{i-1})`` runs as an associative scan of
     projectively-normalised 2x2 Moebius maps, and the dp/back-substitution

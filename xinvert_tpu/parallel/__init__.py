@@ -7,22 +7,15 @@ The reference framework is single-process and single-threaded (see
 slices).  Here the grid is decomposed over a ``jax.sharding.Mesh`` with axes
 ('batch', 'y', 'x'): non-core dims shard over 'batch' (data parallelism),
 and the core grid shards spatially over ('y', 'x').  Stencil neighbor access
-compiles to XLA collective-permutes over ICI; convergence norms become global
-cross-device reductions — XLA's SPMD partitioner inserts the collectives from
-the sharding annotations.
+compiles to XLA collective-permutes between devices; convergence norms become
+global cross-device reductions — XLA's SPMD partitioner inserts the
+collectives from the sharding annotations.
 """
 from .mesh import (                                              # noqa: F401
     make_grid_mesh, shard_problem, solve_sharded, solve_fixed_sharded,
     problem_pspecs, shard_mg_levels, solve_mg_sharded,
 )
 from .halo import solve_fixed_halo                               # noqa: F401
-from .halo_window import (                                       # noqa: F401
-    solve_fixed_halo_window, solve_halo_window, halo_window_applicable,
-)
-from .halo_window3d import (                                     # noqa: F401
-    solve_fixed_halo_window3d, solve_halo_window3d,
-    halo_window3d_applicable,
-)
 from .scaling import (                                           # noqa: F401
     initialize_distributed, make_hybrid_mesh, scaling_bench,
     format_scaling_table,

@@ -35,10 +35,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map            # jax >= 0.8
-except ImportError:                      # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..stencil import StencilSpec
 
@@ -118,14 +115,14 @@ def solve_fixed_halo(spec: StencilSpec, S, omega, n_iters: int,
     and stay unsharded (shard over 'batch' with the GSPMD path if needed).
 
     ``k_sweeps > 1`` selects the COMMUNICATION-AVOIDING variant (the
-    multi-device analog of the windowed Pallas kernel): halos of width
+    multi-device analog of the fused sweep kernel, ops/sor2d.py): halos of width
     ``2 * radius * k_sweeps`` are exchanged once per k iterations and each
     device runs k padded local iterations, so the message COUNT per
     iteration drops 2k-fold (2 exchanges per k iterations vs 2 per
     half-sweep) at the cost of wider rings and
     ``(b + 2h)^2 / b^2`` redundant compute.  The right trade for
-    latency-bound DCN links; per-half-sweep packed exchange (k=1) moves
-    fewer bytes on bandwidth-bound ICI.  Bit-identical to ``solve_fixed``
+    latency-bound links between hosts; per-half-sweep packed exchange
+    (k=1) moves fewer bytes on bandwidth-bound links.  Bit-identical to ``solve_fixed``
     for any k: owned cells only ever read ghost values inside the fresh
     dependence cone (tests/test_parallel.py).
     """
@@ -355,7 +352,7 @@ def _solve_fixed_halo_kavoid(spec: StencilSpec, S, omega,
     """Ghost-zone (communication-avoiding) sharded executor: one exchange
     per ``k_sweeps`` iterations with halos covering the k-sweep dependence
     cone.  See ``solve_fixed_halo``; the validity-frontier argument is the
-    same as the windowed Pallas kernel's (ops/pallas_sor_window.py): a
+    same as the fused sweep kernel's (ops/sor2d.py): a
     ghost cell at depth j holds globally-correct values through iteration
     i while j <= h - 2*radius*i, and owned cells only ever read inside
     that frontier.  Beyond-domain ghosts on non-periodic edges hold

@@ -2,14 +2,14 @@
 """Device meshes and sharded solves (2-D spatial domain decomposition + data
 parallelism over batch dims).
 
-TPU-native scaling strategy replacing the reference's sequential slice loop
+The scaling strategy replacing the reference's sequential slice loop
 (/root/reference/xinvert/core.py:129-139) and its aspirational dask chunking
 (README.md:35): the problem's arrays are placed with
 ``jax.sharding.NamedSharding`` over a ('batch', 'y', 'x') mesh and the jitted
 solver runs unchanged — XLA's SPMD partitioner turns the stencil's
-neighbor shifts into halo collective-permutes over ICI and the convergence
-norm into a global all-reduce.  Works identically on one host (ICI) and on
-multi-host slices after ``jax.distributed.initialize`` (DCN).
+neighbor shifts into halo collective-permutes and the convergence norm into
+a global all-reduce.  Works identically on one host and on several after
+``jax.distributed.initialize``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def make_grid_mesh(n_devices: Optional[int] = None, batch: int = 1,
 
     `batch` devices are assigned to data parallelism over non-core dims;
     the rest are factored near-square into the spatial ('y', 'x') axes so
-    halo surface (and hence ICI traffic) is minimised.
+    halo surface (and hence collective traffic) is minimised.
     """
     if devices is None:
         devices = jax.devices()
@@ -95,12 +95,17 @@ def problem_pspecs(spec: StencilSpec, batch_ndim: int):
 
 
 def shard_problem(spec: StencilSpec, S0, mesh: Mesh):
-    """device_put the compiled problem and initial state onto the mesh."""
+    """device_put the compiled problem and initial state onto the mesh.
+
+    A dim the mesh axis does not divide stays replicated on that axis
+    (:func:`_fit_pspec`); :func:`solve_sharded` pads the leading batch dim
+    instead, so batches of any size still split over 'batch'."""
     batch_ndim = np.ndim(S0) - spec.ndim
     spec_specs, s_pspec = problem_pspecs(spec, batch_ndim)
 
     def put(a, p):
-        return jax.device_put(a, NamedSharding(mesh, p))
+        return jax.device_put(a, NamedSharding(
+            mesh, _fit_pspec(p, np.shape(a), mesh)))
 
     spec_sh = StencilSpec(
         w=put(spec.w, spec_specs.w), w0=put(spec.w0, spec_specs.w0),
@@ -128,10 +133,47 @@ def solve_sharded(spec: StencilSpec, S0, mesh: Optional[Mesh] = None,
     """
     if mesh is None:
         mesh = make_grid_mesh()
+    if omega is None:
+        from ..grid import optimal_omega
+        omega = optimal_omega(np.shape(S0)[-spec.ndim:])
+    spec, S0, n_batch = _pad_batch(spec, S0, mesh)
     spec_sh, S0_sh = shard_problem(spec, S0, mesh)
-    return solve(spec_sh, S0_sh, omega=omega, tol=tol, max_iters=max_iters,
-                 check_every=check_every, scheme=scheme, tol_type=tol_type,
-                 use_pallas=False)
+    res = solve(spec_sh, S0_sh, omega=omega, tol=tol, max_iters=max_iters,
+                check_every=check_every, scheme=scheme, tol_type=tol_type,
+                use_kernel=False)
+    if n_batch is None:
+        return res
+    return jax.tree_util.tree_map(lambda a: a[:n_batch], res)
+
+
+def _pad_batch(spec: StencilSpec, S0, mesh: Mesh):
+    """Pad the leading batch dim to a multiple of the mesh's 'batch' axis
+    with copies of the last slice (spec planes batched like S0 included),
+    so any batch splits over 'batch'.  A copy converges exactly like the
+    slice it copies, so padding never extends the solve.  Returns
+    ``(spec, S0, n)`` with ``n`` the original batch size, or None when
+    nothing was padded."""
+    S0 = jax.numpy.asarray(S0)
+    nb = mesh.shape.get("batch", 1)
+    if S0.ndim <= spec.ndim or S0.shape[0] % nb == 0:
+        return spec, S0, None
+    n = S0.shape[0]
+    extra = nb - n % nb
+    bnd = S0.ndim - spec.ndim
+
+    def pad(a, lead=0):
+        a = jax.numpy.asarray(a)
+        if a.ndim - lead - spec.ndim != bnd or a.shape[lead] != n:
+            return a                     # shared by all slices
+        last = jax.lax.slice_in_dim(a, n - 1, n, axis=lead)
+        reps = jax.numpy.repeat(last, extra, axis=lead)
+        return jax.numpy.concatenate([a, reps], axis=lead)
+
+    import dataclasses
+    spec = dataclasses.replace(
+        spec, w=pad(spec.w, 1), w0=pad(spec.w0), g=pad(spec.g),
+        relax=pad(spec.relax), active=pad(spec.active))
+    return spec, pad(S0), n
 
 
 def _fit_pspec(p: P, shape, mesh: Mesh) -> P:

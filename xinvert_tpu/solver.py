@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Red-black SOR engine and convergence driver.
 
-TPU-native replacement for the reference's lexicographic in-place Gauss-Seidel
+Data-parallel replacement for the reference's lexicographic in-place Gauss-Seidel
 sweeps (/root/reference/xinvert/numbas.py).  A lexicographic sweep is a serial
 dependency chain over the whole grid and cannot use a vector core; the
 red-black (checkerboard) ordering splits each sweep into two fully parallel
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +54,21 @@ class SolveResult:
 # reference ignores extend on other dims and we replicate that.
 # ---------------------------------------------------------------------------
 
+def _clamp_cols(row, ring):
+    """``row[..., clip(i, ring, nx - 1 - ring)]``: the extend copy's corner
+    clamp, as whole-row rolls and selects.  Partial-width updates of a row
+    (``.at[..., 1:-1]``) are avoided on purpose: XLA's SPMD partitioner
+    misplaces them when x is sharded."""
+    col = jax.lax.broadcasted_iota(jnp.int32, row.shape, row.ndim - 1)
+    nx = row.shape[-1]
+    out = row
+    for d in range(1, ring + 1):
+        out = jnp.where(col == ring - d, jnp.roll(row, -d, axis=-1), out)
+        out = jnp.where(col == nx - 1 - ring + d, jnp.roll(row, d, axis=-1),
+                        out)
+    return out
+
+
 def _apply_extend(spec: StencilSpec, S):
     nd = spec.ndim
     if nd == 1:
@@ -65,16 +80,10 @@ def _apply_extend(spec: StencilSpec, S):
         return S
     periodic_x = spec.bcs[-1] == "periodic"
     if nd == 2 and not spec.bih:
-        if periodic_x:
-            S = S.at[..., 0, :].set(S[..., 1, :])
-            S = S.at[..., -1, :].set(S[..., -2, :])
-        else:
-            S = S.at[..., 0, 1:-1].set(S[..., 1, 1:-1])
-            S = S.at[..., -1, 1:-1].set(S[..., -2, 1:-1])
-            S = S.at[..., 0, 0].set(S[..., 1, 1])
-            S = S.at[..., 0, -1].set(S[..., 1, -2])
-            S = S.at[..., -1, 0].set(S[..., -2, 1])
-            S = S.at[..., -1, -1].set(S[..., -2, -2])
+        top, bot = S[..., 1, :], S[..., -2, :]
+        if not periodic_x:
+            top, bot = _clamp_cols(top, 1), _clamp_cols(bot, 1)
+        S = S.at[..., 0, :].set(top).at[..., -1, :].set(bot)
     elif nd == 2 and spec.bih:
         if periodic_x:
             # sequential reference semantics: S[0]=old S[1]; S[1]=S[2]
@@ -83,27 +92,17 @@ def _apply_extend(spec: StencilSpec, S):
             bm3 = S[..., -3, :]
             S = S.at[..., -1, :].set(bm3).at[..., -2, :].set(bm3)
         else:
-            top = S[..., 2, 1:-1]
-            S = S.at[..., 0, 1:-1].set(top).at[..., 1, 1:-1].set(top)
-            bot = S[..., -3, 1:-1]
-            S = S.at[..., -1, 1:-1].set(bot).at[..., -2, 1:-1].set(bot)
-            for (ys, xs, yy, xx) in (((0, 2), (0, 2), 2, 2),
-                                     ((0, 2), (-2, None), 2, -3),
-                                     ((-2, None), (0, 2), -3, 2),
-                                     ((-2, None), (-2, None), -3, -3)):
-                c = S[..., yy, xx]
-                S = S.at[..., slice(*ys), slice(*xs)].set(c[..., None, None])
+            # rows 0, 1 <- row 2 and rows -2, -1 <- row -3, columns
+            # clamped into [2, nx-3] (the reference's 2x2 corner blocks)
+            top = _clamp_cols(S[..., 2, :], 2)
+            bot = _clamp_cols(S[..., -3, :], 2)
+            S = S.at[..., 0, :].set(top).at[..., 1, :].set(top)
+            S = S.at[..., -1, :].set(bot).at[..., -2, :].set(bot)
     else:  # 3D: rows extended for interior z levels only (numbas.py:87-115)
-        if periodic_x:
-            S = S.at[..., 1:-1, 0, :].set(S[..., 1:-1, 1, :])
-            S = S.at[..., 1:-1, -1, :].set(S[..., 1:-1, -2, :])
-        else:
-            S = S.at[..., 1:-1, 0, 1:-1].set(S[..., 1:-1, 1, 1:-1])
-            S = S.at[..., 1:-1, -1, 1:-1].set(S[..., 1:-1, -2, 1:-1])
-            S = S.at[..., 1:-1, 0, 0].set(S[..., 1:-1, 1, 1])
-            S = S.at[..., 1:-1, 0, -1].set(S[..., 1:-1, 1, -2])
-            S = S.at[..., 1:-1, -1, 0].set(S[..., 1:-1, -2, 1])
-            S = S.at[..., 1:-1, -1, -1].set(S[..., 1:-1, -2, -2])
+        top, bot = S[..., 1:-1, 1, :], S[..., 1:-1, -2, :]
+        if not periodic_x:
+            top, bot = _clamp_cols(top, 1), _clamp_cols(bot, 1)
+        S = S.at[..., 1:-1, 0, :].set(top).at[..., 1:-1, -1, :].set(bot)
     return S
 
 
@@ -227,78 +226,78 @@ def _residual_scale(spec: StencilSpec):
 # drivers
 # ---------------------------------------------------------------------------
 
-def _select_kernel(spec, S):
-    """Kernel dispatch on TPU/f32: the VMEM-resident fused kernel when the
-    whole problem fits on-chip, the windowed ghost-zone kernel for larger
-    2-D grids, else the XLA roll path (None)."""
-    if jax.default_backend() != "tpu" or S.dtype != jnp.float32:
-        return None
-    for a in (S, spec.w0):
-        # pallas_call has no SPMD partitioning rule outside shard_map:
-        # GSPMD-sharded operands keep the partitionable XLA sweeps (the
-        # sharded kernel path is parallel/halo_window.py)
+class SweepChoice(NamedTuple):
+    """How a solve runs its sweeps: ``kernel`` is ``"xla"`` (the roll
+    sweep, every platform) or ``"cuda"`` (ops/sor2d.py, NVIDIA GPUs), and
+    ``check_every`` is the default convergence-check cadence."""
+    kernel: str
+    check_every: int
+
+
+def _platform() -> str:
+    return jax.default_backend()
+
+
+def _multi_device(*arrays) -> bool:
+    """True when a concrete operand is sharded over several devices (the
+    FFI kernel has no partitioning rule; GSPMD keeps the XLA sweep)."""
+    for a in arrays:
+        if isinstance(a, jax.core.Tracer):
+            continue
         sh = getattr(a, "sharding", None)
-        if sh is not None and len(getattr(sh, "device_set", ())) > 1:
-            return None
-    from .ops.pallas_sor import pallas_applicable
-    if pallas_applicable(spec, jnp.shape(S)):
-        return "vmem"
-    from .ops.pallas_sor_window import window_applicable
-    if window_applicable(spec, jnp.shape(S), for_dispatch=True):
-        return "window"
-    from .ops.pallas_sor3d import pallas3d_applicable
-    if pallas3d_applicable(spec, jnp.shape(S)):
-        return "vmem3d"
-    from .ops.pallas_sor3d_window import window3d_applicable
-    if window3d_applicable(spec, jnp.shape(S), for_dispatch=True):
-        return "window3d"
-    return None
+        if sh is not None and len(sh.device_set) > 1:
+            return True
+    return False
 
 
-def _use_pallas(spec, S) -> bool:
-    """Back-compat helper: True when the VMEM-resident kernel dispatches."""
-    return _select_kernel(spec, S) == "vmem"
+def choose_sweep(spec, S, scheme: str = "sor",
+                 max_iters: Optional[int] = None) -> SweepChoice:
+    """The one place that decides how sweeps run, from the platform, the
+    dtype, the shape and the sharding.
+
+    - ``kernel``: the fused CUDA kernel for float32 2-D red-black SOR on a
+      GPU, on one device, when its window plan applies
+      (``ops.sor2d.window_plan``); the XLA roll sweep otherwise.
+    - ``check_every``: on a GPU at float32 the convergence test runs every
+      ``min(32, max_iters // 10)`` sweeps, so the norm and the loop trip
+      are paid once per window.  The solution-change rule then compares
+      norms a whole window apart, so a tolerance is met later than with
+      per-sweep checks (see PERF.md).  ``scheme="lexico"`` (reference
+      parity of the per-sweep stopping rule), float64 and the CPU check
+      every sweep.
+    """
+    gpu = _platform() == "gpu"
+    f32 = jnp.dtype(S.dtype) == jnp.float32
+    check_every = 1
+    if gpu and f32 and scheme != "lexico" and max_iters is not None:
+        check_every = max(1, min(32, int(max_iters) // 10))
+    kernel = "xla"
+    if (gpu and f32 and scheme == "sor" and spec.ndim == 2
+            and not _multi_device(S, spec.w0)):
+        from .ops.sor2d import window_plan
+        if window_plan(spec, jnp.shape(S)) is not None:
+            kernel = "cuda"
+    return SweepChoice(kernel, check_every)
 
 
 def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
-                kernel=None, scheme="sor", tol_type="change"):
+                kernel="xla", scheme="sor", tol_type="change"):
     dtype = S0.dtype
     batch_shape = jnp.shape(S0)[: S0.ndim - spec.ndim]
     r_scale = _residual_scale(spec) if tol_type == "residual" else None
 
     sweeps_aux, init_aux = None, ()
-    sweeps_norm = None                   # fused-norm stepper (window path)
-    sweeps_aux_norm = None               # cheby window stepper
-    state_split = state_join = None      # split-state carry (window path)
-    state_freeze = None                  # custom per-batch freeze (groups)
     if scheme == "cheby":
-        # Chebyshev semi-iteration needs per-half-sweep factors.  On the
-        # windowed-kernel path the factors ride into the kernel through
-        # SMEM (make_window_cheby_stepper, round 3); otherwise the XLA
-        # path runs with (m, w) recurrence state in the loop carry.
-        stepper = None
-        if kernel == "window" and tol_type != "residual":
-            from .ops.pallas_sor_window import make_window_cheby_stepper
-            stepper = make_window_cheby_stepper(spec, S0, omega,
-                                                check_every)
-        if stepper is not None:
-            state_split, state_join = stepper.split, stepper.join
-            state_freeze = stepper.freeze
-            cheb_full, cheb_dyn = stepper.step_full, stepper.step_dyn
+        # Chebyshev semi-iteration: per-half-sweep factors, with the
+        # (m, w) recurrence state in the loop carry
+        base_r, base_b = _color_relax(spec, jnp.asarray(1.0, dtype))
+        rho2 = rho2_from_omega(jnp.asarray(omega, dtype))
 
-            def sweeps_aux_norm(st, aux, k, full):
-                if full:
-                    return cheb_full(st, aux[0], aux[1])
-                return cheb_dyn(st, aux[0], aux[1], k)
-        else:
-            base_r, base_b = _color_relax(spec, jnp.asarray(1.0, dtype))
-            rho2 = rho2_from_omega(jnp.asarray(omega, dtype))
-
-            def sweeps_aux(S, aux, k):
-                def it(_, c):
-                    S, m, w = c
-                    return _sweep_cheby(spec, S, m, w, rho2, base_r, base_b)
-                return jax.lax.fori_loop(0, k, it, (S, aux[0], aux[1]))
+        def sweeps_aux(S, aux, k):
+            def it(_, c):
+                S, m, w = c
+                return _sweep_cheby(spec, S, m, w, rho2, base_r, base_b)
+            return jax.lax.fori_loop(0, k, it, (S, aux[0], aux[1]))
 
         init_aux = (jnp.zeros((), jnp.int32), jnp.ones((), dtype))
     elif scheme == "lexico":
@@ -311,69 +310,14 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
 
         def sweeps(S, k, full):
             return jax.lax.fori_loop(0, k, lambda i, s: one(s), S)
-    elif kernel == "vmem":
-        from .ops.pallas_sor import sor_sweeps_pallas
+    elif kernel == "cuda":
+        # operands prepared once, outside the while loop; a check window
+        # of check_every sweeps is ceil(check_every / plan.k) launches
+        from .ops.sor2d import Sweeper
+        sweeper = Sweeper(spec, jnp.shape(S0), omega, max_k=check_every)
 
         def sweeps(S, k, full):
-            return sor_sweeps_pallas(spec, S, omega, k)
-    elif kernel == "vmem3d":
-        from .ops.pallas_sor3d import sor_sweeps_pallas3d
-
-        def sweeps(S, k, full):
-            return sor_sweeps_pallas3d(spec, S, omega, k)
-    elif kernel == "window":
-        from .ops.pallas_sor_window import (sor_sweeps_window,
-                                            make_window_stepper)
-
-        # the fused norm partial only pays for itself under the
-        # solution-change rule; the residual rule re-reads the state anyway
-        stepper = (make_window_stepper(spec, S0, omega, check_every)
-                   if tol_type != "residual" else None)
-        if stepper is not None:
-            # checked-solve hot path: plan + W stack built ONCE before the
-            # while loop (loop-invariant), masked-mean-|S| norm partials
-            # fused into the kernel's tile write-back, and the loop carry
-            # holds the executor's SPLIT state so edge-split/row-chunk
-            # executors never pay per-check join/split copies — a check
-            # costs only its kernel launches (round-2 per-check cost was
-            # dominated by rebuilding the W stack every check)
-            state_split, state_join = stepper.split, stepper.join
-            state_freeze = stepper.freeze
-            step_full, step_dyn = stepper.step_full, stepper.step_dyn
-
-            def sweeps_norm(st, k, full):
-                # `full` is static: the hot while body always runs the
-                # statically-unrolled step; only the one-off mxLoop
-                # remainder (outside the loop) takes the dynamic kernel
-                return step_full(st) if full else step_dyn(st, k)
-        else:
-            def sweeps(S, k, full):
-                # full windows take the statically-unrolled fast kernel;
-                # only the one-off clamped remainder pays the
-                # dynamic-count variant
-                n = check_every if full else k
-                return sor_sweeps_window(spec, S, omega, n)
-    elif kernel == "window3d":
-        from .ops.pallas_sor3d_window import (sor_sweeps_window3d,
-                                              make_window3d_stepper)
-
-        stepper = (make_window3d_stepper(spec, S0, omega, check_every)
-                   if tol_type != "residual" else None)
-        if stepper is not None:
-            # same shape as the 2-D stepper: plan + stacked coefficient
-            # volume built once, split-state carry; the norm is an XLA
-            # reduction over the chunks (a few MiB per check for the
-            # omega-class volumes)
-            state_split, state_join = stepper.split, stepper.join
-            state_freeze = stepper.freeze
-            step_full, step_dyn = stepper.step_full, stepper.step_dyn
-
-            def sweeps_norm(st, k, full):
-                return step_full(st) if full else step_dyn(st, k)
-        else:
-            def sweeps(S, k, full):
-                n = check_every if full else k
-                return sor_sweeps_window3d(spec, S, omega, n)
+            return sweeper(S, check_every) if full else sweeper.dynamic(S, k)
     elif check_every == 1:
         rr, rb = _color_relax(spec, jnp.asarray(omega, dtype))
 
@@ -387,11 +331,11 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
                 0, k, lambda i, s: _sweep_with(spec, s, rr, rb), S)
 
     # norm_prev < 0 marks "no previous norm yet".  (The reference uses a
-    # float-max sentinel, numbas.py; that breaks on TPU: |norm - MAX| / MAX
-    # lowers to a multiply by the subnormal 1/MAX, which the TPU flushes to
-    # zero -> rel == 0 -> instant false convergence.)
+    # float-max sentinel, numbas.py; |norm - MAX| / MAX can lower to a
+    # multiply by the subnormal 1/MAX, which flush-to-zero hardware turns
+    # into rel == 0 -> instant false convergence.)
     init = dict(
-        S=S0 if state_split is None else state_split(S0),
+        S=S0,
         it=jnp.zeros((), jnp.int32),      # total sweeps run (scalar)
         loop=jnp.zeros(batch_shape, jnp.int32),
         norm_prev=jnp.full(batch_shape, -1.0, dtype),
@@ -404,45 +348,29 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
     def cond(c):
         # the hot loop runs only FULL check windows; the clamped mxLoop
         # remainder is a one-off tail step outside the loop, so the body
-        # stays free of data-dependent branches (a lax.cond in the body
-        # measured ~6% of solve time at 2048^2, tools/tpu_stepper_probe.py)
+        # stays free of data-dependent branches
         return jnp.any(~c["done"]) & (c["it"] + check_every
                                       <= max_iters.astype(jnp.int32))
 
     def advance(c, k_eff, full):
         # one check window: k_eff sweeps, then the convergence/telemetry
         # update.  `full` is STATIC: True in the while body (k_eff ==
-        # check_every, statically-unrolled kernels), False in the tail
-        # (dynamic remainder count)
-        sum_abs = None
-        if sweeps_aux_norm is not None:
-            S_new, m_new, w_new, sum_abs = sweeps_aux_norm(
-                c["S"], c["aux"], k_eff, full)
-            aux_new = (m_new, w_new)
-        elif sweeps_aux is not None:
+        # check_every, a static sweep count), False in the tail (dynamic
+        # remainder count)
+        if sweeps_aux is not None:
             S_new, m_new, w_new = sweeps_aux(c["S"], c["aux"], k_eff)
             aux_new = (m_new, w_new)
-        elif sweeps_norm is not None:
-            S_new, sum_abs = sweeps_norm(c["S"], k_eff, full)
-            aux_new = c["aux"]
         else:
             S_new = sweeps(c["S"], k_eff, full)
             aux_new = c["aux"]
         if tol_type == "residual":
-            # TPU-native extension: stop on the TRUE relative discrete
-            # residual mean|r|/mean|g| (what multigrid monitors) instead of
-            # the reference's solution-change rule
+            # extension: stop on the TRUE relative discrete residual
+            # mean|r|/mean|g| (what multigrid monitors) instead of the
+            # reference's solution-change rule
             norm = jnp.broadcast_to(_residual_norm(spec, S_new), batch_shape)
             rel = norm / r_scale
         else:
-            if sum_abs is not None:
-                # fused in-kernel partial: total |S| over core cells came
-                # back with the sweep launches — same masked-mean-|S| rule,
-                # no second pass over the state
-                ncells = float(np.prod(jnp.shape(S0)[-spec.ndim:]))
-                norm = sum_abs / jnp.asarray(ncells, sum_abs.dtype)
-            else:
-                norm = _norm(spec, S_new)
+            norm = _norm(spec, S_new)
             prev = c["norm_prev"]
             rel = jnp.where(prev >= 0,
                             jnp.abs(norm - prev)
@@ -475,19 +403,8 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
                 return jnp.where(done, old, new)
 
             def frz_state(old, new):
-                # batch-group states are per-group tuples whose leaves
-                # slice the batch axis — the stepper supplies its own
-                # freeze that re-slices `done` per group
-                if state_freeze is not None:
-                    return state_freeze(old, new, c["done"])
-                # split-state leaves are (B_flat, rows, nx); plain state is
-                # batch_shape + core — one tree_map covers both
-                if state_split is not None:
-                    d = c["done"].reshape((-1,) + (1,) * spec.ndim)
-                else:
-                    d = c["done"].reshape(batch_shape + (1,) * spec.ndim)
-                return jax.tree_util.tree_map(
-                    lambda o, n: jnp.where(d, o, n), old, new)
+                d = c["done"].reshape(batch_shape + (1,) * spec.ndim)
+                return jnp.where(d, old, new)
         return dict(
             S=frz_state(c["S"], S_new),
             it=c["it"] + k_eff,
@@ -508,36 +425,34 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every=1,
         jnp.any(~out["done"]) & (rem > 0),
         lambda c: advance(c, rem, False),
         lambda c: c, out)
-    S_out = out["S"] if state_join is None else state_join(out["S"])
-    return SolveResult(S=S_out, iters=out["loop"], rel_change=out["rel"],
+    return SolveResult(S=out["S"], iters=out["loop"], rel_change=out["rel"],
                        overflow=out["overflow"])
 
 
 _solve_jit = partial(jax.jit,
                      static_argnames=("check_every", "kernel", "scheme", "tol_type"))(
     _solve_impl)
-# the windowed >VMEM and VMEM-resident 3-D kernels need the raised
-# scoped-VMEM budget on the top-level compile
-# (see ops/pallas_sor_window.WINDOW_COMPILER_OPTS)
-_solve_jit_window = None
 
 
-def _solve_jit_for(kernel):
-    global _solve_jit_window
-    if kernel not in ("window", "vmem3d", "window3d"):
-        return _solve_jit
-    if _solve_jit_window is None:
-        from .ops.pallas_sor_window import WINDOW_COMPILER_OPTS
-        _solve_jit_window = partial(
-            jax.jit, static_argnames=("check_every", "kernel", "scheme", "tol_type"),
-            compiler_options=WINDOW_COMPILER_OPTS)(_solve_impl)
-    return _solve_jit_window
+def _kernel_for(spec, S0, use_kernel, scheme="sor"):
+    """``use_kernel``: None -> :func:`choose_sweep`; False -> the XLA
+    sweep; True -> the CUDA kernel (an error where it cannot run)."""
+    if use_kernel is None:
+        return choose_sweep(spec, S0, scheme).kernel
+    if not use_kernel:
+        return "xla"
+    from .ops.sor2d import window_plan
+    if scheme != "sor" or window_plan(spec, jnp.shape(S0)) is None:
+        raise ValueError("use_kernel=True: the CUDA sweep kernel does not "
+                         f"apply to this problem ({spec.bcs}, "
+                         f"{jnp.shape(S0)}, scheme={scheme!r})")
+    return "cuda"
 
 
 def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
           tol: float = 1e-8, max_iters: int = 5000,
           check_every: int = 1,
-          use_pallas: Optional[bool] = None,
+          use_kernel: Optional[bool] = None,
           scheme: str = "sor",
           tol_type: str = "change") -> SolveResult:
     """Iterate to convergence with the reference's stopping rule.
@@ -549,10 +464,9 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
 
     ``check_every`` amortises the convergence reduction over k sweeps (the
     termination test then sees the norm every k-th iterate; k=1 reproduces
-    the reference exactly).  ``use_pallas`` (auto on TPU for 2-D f32
-    problems: the fused VMEM-resident kernel when the problem fits on-chip,
-    the windowed ghost-zone kernel for larger grids) runs the sweeps as a
-    Pallas kernel.
+    the reference exactly).  ``use_kernel`` (None: :func:`choose_sweep`
+    decides; on a GPU, 2-D float32 SOR runs the fused CUDA kernel of
+    ops/sor2d.py) forces the kernel (True) or the XLA sweep (False).
 
     ``scheme="lexico"`` runs the reference's EXACT lexicographic iterate
     sequence (lexico.py) under this stopping rule — published xinvert
@@ -560,7 +474,7 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     (tests/test_notebook_parity.py, E2E.json); keep ``check_every=1``
     for stopping parity.
 
-    ``tol_type="residual"`` (TPU-native extension) stops on the TRUE
+    ``tol_type="residual"`` (an extension) stops on the TRUE
     relative discrete residual mean|r|/mean|g| over active cells instead of
     the reference's solution-change rule — the change rule can fire
     spuriously early when the iterate momentarily stalls; the residual rule
@@ -596,30 +510,16 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
                          "use 'change' or 'residual'")
     if scheme in ("sor", "cheby"):
         # drop identically-zero weight planes (Munk-class biharmonic
-        # specs carry 8 of 16 zero): the kernels' HBM traffic scales with
+        # specs carry 8 of 16 zero): a sweep's memory traffic scales with
         # the plane count (stencil.prune_zero_offsets; exact)
         from .stencil import prune_zero_offsets
         spec = prune_zero_offsets(spec)
-    if scheme == "cheby":
-        # round 3: the windowed kernel takes per-half-sweep factors via
-        # SMEM; other kernels still bake a constant omega -> XLA path
-        k0 = _select_kernel(spec, S0) if use_pallas is None else None
-        kernel = "window" if k0 == "window" else None
-    elif scheme == "lexico":
-        # reference-ordered sweeps are their own (XLA) executor
-        kernel = None
-    elif use_pallas is None:
-        kernel = _select_kernel(spec, S0)
-    elif use_pallas:
-        kernel = "vmem"
-    else:
-        kernel = None
-    return _solve_jit_for(kernel)(spec, S0, jnp.asarray(omega, S0.dtype),
-                                  jnp.asarray(tol, S0.dtype),
-                                  jnp.asarray(max_iters, jnp.int32),
-                                  check_every=int(check_every),
-                                  kernel=kernel, scheme=scheme,
-                                  tol_type=tol_type)
+    kernel = _kernel_for(spec, S0, use_kernel, scheme)
+    return _solve_jit(spec, S0, jnp.asarray(omega, S0.dtype),
+                      jnp.asarray(tol, S0.dtype),
+                      jnp.asarray(max_iters, jnp.int32),
+                      check_every=int(check_every), kernel=kernel,
+                      scheme=scheme, tol_type=tol_type)
 
 
 @partial(jax.jit, static_argnames=("n_iters",))
@@ -629,44 +529,28 @@ def _solve_fixed_xla(spec: StencilSpec, S0, omega, n_iters: int):
         0, n_iters, lambda i, S: _sweep_with(spec, S, rr, rb), S0)
 
 
+@partial(jax.jit, static_argnames=("n_iters",))
+def _solve_fixed_cuda(spec: StencilSpec, S0, omega, n_iters: int):
+    from .ops.sor2d import Sweeper
+    return Sweeper(spec, jnp.shape(S0), omega)(S0, n_iters)
+
+
 def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int,
-                use_pallas: Optional[bool] = None):
+                use_kernel: Optional[bool] = None):
     """Run exactly n_iters SOR iterations (no convergence checks).
 
     The hot path for benchmarking and for fixed-iteration parity tests.
-    Dispatches to the fused VMEM-resident Pallas kernel on TPU when the
-    problem fits (ops/pallas_sor.py); the XLA roll path otherwise.
+    ``use_kernel`` as in :func:`solve`: by default :func:`choose_sweep`
+    picks the fused CUDA kernel (ops/sor2d.py) or the XLA roll sweep.
 
     NOTE: unlike :func:`solve`, this does NOT call
     ``stencil.prune_zero_offsets`` — the prune check is a device->host
-    sync, and callers here typically chain many calls on one spec (the
-    benchmark pattern; a per-call sync through the relay halves measured
-    throughput).  Prune once yourself for zero-plane-heavy specs (the
-    Munk biharmonic class).
+    sync, and callers here typically chain many calls on one spec.  Prune
+    once yourself for zero-plane-heavy specs (the Munk biharmonic class).
     """
     S0 = jnp.asarray(S0)
-    if use_pallas is None:
-        kernel = _select_kernel(spec, S0)
-    elif use_pallas:
-        kernel = "vmem"
-    else:
-        kernel = None
-    if kernel == "vmem":
-        from .ops.pallas_sor import sor_sweeps_pallas
-        return sor_sweeps_pallas(spec, S0, jnp.asarray(omega, S0.dtype),
-                                 n_iters)
-    if kernel == "window":
-        from .ops.pallas_sor_window import sor_sweeps_window
-        return sor_sweeps_window(spec, S0, jnp.asarray(omega, S0.dtype),
-                                 n_iters)
-    if kernel == "vmem3d":
-        from .ops.pallas_sor3d import sor_sweeps_pallas3d
-        return sor_sweeps_pallas3d(spec, S0, jnp.asarray(omega, S0.dtype),
-                                   n_iters)
-    if kernel == "window3d":
-        from .ops.pallas_sor3d_window import sor_sweeps_window3d
-        return sor_sweeps_window3d(spec, S0, jnp.asarray(omega, S0.dtype),
-                                   n_iters)
+    if _kernel_for(spec, S0, use_kernel) == "cuda":
+        return _solve_fixed_cuda(spec, S0, omega, n_iters)
     return _solve_fixed_xla(spec, S0, omega, n_iters)
 
 
@@ -699,7 +583,7 @@ def solve_trajectory(spec: StencilSpec, S0, omega,
                      scheme: str = "sor"):
     """Solution snapshots every `loop_per_frame` iterations.
 
-    The TPU-native `animate_iteration` (apps.py:895-1058): one lax.scan whose
+    The on-device `animate_iteration` (apps.py:895-1058): one lax.scan whose
     carry is the warm-restarted solution, emitting a snapshot per frame.
     Returns an array stacked along a leading `frame` axis.
 
